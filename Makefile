@@ -2,30 +2,19 @@
 
 PY ?= python
 
-.PHONY: test test_onep hwtest native cl_test selftest bench block_test records profiles clean
+.PHONY: test test_gpu smoke native cl_test selftest bench block_test clean
 
-# one pytest PROCESS PER TEST MODULE: a single long-lived process
-# accumulates XLA CPU compiler state across the ~200 kernel variants the
-# suite compiles and aborts mid-run on this image (Fatal Python error in
-# backend_compile_and_load; mechanism at ops/decode_ws.py) — module
-# partitioning keeps every process well under the limit while the
-# persistent compilation cache keeps reruns fast
+# CPU tests on an 8-device virtual mesh (tests/conftest.py)
 test:
-	@set -e; fail=0; \
-	for f in tests/test_*.py; do \
-		echo "== $$f"; \
-		$(PY) -m pytest "$$f" -q || fail=1; \
-	done; \
-	[ $$fail -eq 0 ] && echo "make test: ALL MODULES PASSED" || { echo "make test: FAILURES"; exit 1; }
+	JAX_PLATFORMS=cpu $(PY) -m pytest tests/ -q
 
-# the old single-process entrypoint, kept for debugging the abort itself
-test_onep:
-	$(PY) -m pytest tests/ -q
+# tests that need the card, one process on it
+test_gpu:
+	JAX_PLATFORMS=cuda $(PY) -m pytest tests/ -q -m gpu
 
-# conformance smoke on the REAL chip, non-interpret (<2 min warm): catches
-# bf16/int8 limb regressions that interpreter-mode CI cannot see
-hwtest:
-	$(PY) tools/hwtest.py
+# the main path on one GPU: five checked phases, JSON result last
+smoke:
+	$(PY) chip_smoke.py
 
 native:
 	$(MAKE) -C csrc
@@ -33,34 +22,24 @@ native:
 # round-trip check on the golden corpus through the CLI, like the
 # reference's cl_test target (Makefile:21-26)
 cl_test: native
-	$(PY) -m csnappy_tpu.cli file -c -b native tests/data/urls.10K /tmp/u.sz
-	$(PY) -m csnappy_tpu.cli file -d -b native /tmp/u.sz /tmp/u.out
-	cmp /tmp/u.out tests/data/urls.10K && echo "cl_test passed"
+	mkdir -p build
+	$(PY) -m csnappy_jax.cli file -c -b native tests/data/urls.10K build/u.sz
+	$(PY) -m csnappy_jax.cli file -d -b native build/u.sz build/u.out
+	cmp build/u.out tests/data/urls.10K && echo "cl_test passed"
 
 selftest:
-	$(PY) -m csnappy_tpu.cli file -S c -b native
-	$(PY) -m csnappy_tpu.cli file -S d -b native
+	$(PY) -m csnappy_jax.cli file -S c -b native
+	$(PY) -m csnappy_jax.cli file -S d -b native
 
 block_test: native
-	$(PY) -m csnappy_tpu.cli block -c -m snappy tests/data/urls.10K /tmp/u.blk
-	$(PY) -m csnappy_tpu.cli block -d -m snappy /tmp/u.blk /tmp/u.blk.out
-	cmp /tmp/u.blk.out tests/data/urls.10K && echo "block_test passed"
+	mkdir -p build
+	$(PY) -m csnappy_jax.cli block -c -m snappy tests/data/urls.10K build/u.blk
+	$(PY) -m csnappy_jax.cli block -d -m snappy build/u.blk build/u.blk.out
+	cmp build/u.blk.out tests/data/urls.10K && echo "block_test passed"
 
 bench:
 	$(PY) bench.py
 
-# committed benchmark records (C16/C17 duty): corpus table + zram-sim
-# tree run — regenerate on the chip each round.  Phase profiles are the
-# separate `profiles` target: every phase cut is its own ~100 s kernel
-# compile, too much chip time to gate the records on.
-records:
-	$(PY) -m csnappy_tpu.tools.benchtable --corpus | tee records/benchtable_r5.txt
-	$(PY) -m csnappy_tpu.tools.zramsim csnappy_tpu | tee records/zramsim_r5.json
-
-profiles:
-	$(PY) -m csnappy_tpu.tools.phaseprof decode > records/phaseprof_r5_decode.jsonl
-	$(PY) -m csnappy_tpu.tools.phaseprof encode > records/phaseprof_r5_encode.jsonl
-
 clean:
 	$(MAKE) -C csrc clean
-	rm -rf .pytest_cache
+	rm -rf .pytest_cache build

@@ -1,4 +1,4 @@
-// Host-side native runtime for the TPU Snappy framework.
+// Host-side native runtime for the csnappy_jax Snappy codec.
 //
 // Role (SURVEY.md §2 native-component checklist): the CPU half of the
 // pipeline — fast fallback codec when no accelerator is attached, the
@@ -285,7 +285,7 @@ int csnappy_host_decompress(const uint8_t* src, uint32_t src_len, uint8_t* dst,
 }
 
 // One-pass tag-boundary scan of a headerless stream (runtime routing leg
-// for the TPU whole-stream decode; csnappy_decompress.c:319-387 control
+// for the device whole-stream decode; csnappy_decompress.c:319-387 control
 // flow without any output writes).  Decides whether the stream splits into
 // independent `seg`-output-byte blocks (true for every stream the
 // reference's 32 KiB fragment loop emits, csnappy_compress.c:636-654):

@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from csnappy_tpu import api, errors
-from csnappy_tpu.models import wire
-from csnappy_tpu.runtime import container
+from csnappy_jax import api, errors
+from csnappy_jax.models import wire
+from csnappy_jax.runtime import container
 
 FAKE = b"\x32\xc4foooooo"
 

@@ -5,7 +5,7 @@ import sys
 
 import pytest
 
-from csnappy_tpu import cli
+from csnappy_jax import cli
 
 DATA = pathlib.Path(__file__).parent / "data"
 
@@ -68,7 +68,7 @@ def test_stdin_stdout_pipe(urls10k):
 
     env.update({k: v for k, v in os.environ.items() if k not in env})
     p1 = subprocess.run(
-        [sys.executable, "-m", "csnappy_tpu.cli", "file", "-c", "-b", "py"],
+        [sys.executable, "-m", "csnappy_jax.cli", "file", "-c", "-b", "py"],
         input=data,
         capture_output=True,
         env=env,
@@ -76,7 +76,7 @@ def test_stdin_stdout_pipe(urls10k):
     )
     assert p1.returncode == 0, p1.stderr
     p2 = subprocess.run(
-        [sys.executable, "-m", "csnappy_tpu.cli", "file", "-d", "-b", "py"],
+        [sys.executable, "-m", "csnappy_jax.cli", "file", "-d", "-b", "py"],
         input=p1.stdout,
         capture_output=True,
         env=env,

@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from csnappy_tpu import api, errors
-from csnappy_tpu.config import CodecConfig
-from csnappy_tpu.models import pymodel
+from csnappy_jax import api, errors
+from csnappy_jax.config import CodecConfig
+from csnappy_jax.models import pymodel
 
 
 def test_block_size_changes_stream(urls10k):

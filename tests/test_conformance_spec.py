@@ -16,7 +16,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from csnappy_tpu.models import pymodel, wire
+from csnappy_jax.models import pymodel, wire
 
 CSRC = pathlib.Path(__file__).parents[1] / "csrc"
 SO = CSRC / "libspec_decoder.so"
@@ -69,7 +69,7 @@ def test_py_encoder_streams_decode_independently(spec, urls10k):
 
 
 def test_native_encoder_streams_decode_independently(spec, urls10k):
-    from csnappy_tpu.runtime import native
+    from csnappy_jax.runtime import native
 
     if not native.available():
         pytest.skip("native runtime not built")
@@ -78,7 +78,7 @@ def test_native_encoder_streams_decode_independently(spec, urls10k):
 
 
 def test_jax_encoder_streams_decode_independently(spec, urls10k):
-    from csnappy_tpu.ops import encode_fused
+    from csnappy_jax.ops import encode_fused
 
     comp = encode_fused.compress_np(urls10k)
     assert _decode(spec, comp, len(urls10k) + 1) == urls10k

@@ -1,10 +1,11 @@
 """XLA decoder vs the oracle and the golden vectors (CPU backend)."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from csnappy_tpu import errors
-from csnappy_tpu.models import pymodel, wire
-from csnappy_tpu.ops import decode_jnp
+from csnappy_jax import errors
+from csnappy_jax.models import pymodel, wire
+from csnappy_jax.ops import decode_jnp
 
 
 def _decode(body: bytes, dst_len: int):
@@ -119,3 +120,20 @@ def test_copy4_accepted():
     out, produced, status = _decode(bytes(stream), 64)
     assert status == errors.E_OK
     assert out.tobytes() == lit + lit[:8]
+
+
+@pytest.mark.parametrize("cap", [7, 100, 1 << 20, decode_jnp.SATURATE])
+def test_saturating_prefix(cap):
+    # exact below the cap, pinned at it above: a sum can never wrap
+    x = np.array([3, 0, 5, 2, 60, 1, 1], np.int32)
+    excl, total = decode_jnp._saturating_prefix(jnp.asarray(x), cap)
+    want = np.minimum(np.concatenate([[0], np.cumsum(x)[:-1]]), cap)
+    assert np.asarray(excl).tolist() == want.tolist()
+    assert int(total) == min(int(x.sum()), cap)
+
+
+def test_saturating_prefix_near_int32_limit():
+    big = np.full((4,), (1 << 30) + 1, np.int32)
+    excl, total = decode_jnp._saturating_prefix(jnp.asarray(big))
+    assert np.asarray(excl).tolist() == [0, (1 << 30) + 1, decode_jnp.SATURATE, decode_jnp.SATURATE]
+    assert int(total) == decode_jnp.SATURATE

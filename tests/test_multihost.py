@@ -5,12 +5,15 @@ half the block sequence in each, and checks the in-order assembled stream
 matches the single-process encoder byte-for-byte.
 """
 import os
+import pathlib
 import socket
 import subprocess
 import sys
 
 import numpy as np
 import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _free_port() -> int:
@@ -30,14 +33,14 @@ def test_two_process_loopback(tmp_path, urls10k):
         env = dict(os.environ)
         env["JAX_PLATFORMS"] = "cpu"
         env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-        env.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
+        env.setdefault("JAX_COMPILATION_CACHE_DIR", str(ROOT / ".jax_cache"))
         out = tmp_path / f"part{rank}.npz"
         procs.append(
             subprocess.Popen(
-                [sys.executable, "-m", "csnappy_tpu.parallel.multihost",
+                [sys.executable, "-m", "csnappy_jax.parallel.multihost",
                  "--worker", "--rank", str(rank), "--nprocs", "2",
                  "--port", str(port), "--out", str(out), "--nbytes", str(n_bytes)],
-                env=env, cwd="/root/repo",
+                env=env, cwd=str(ROOT),
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             )
         )
@@ -50,7 +53,7 @@ def test_two_process_loopback(tmp_path, urls10k):
     np.testing.assert_array_equal(parts[0]["offsets"], parts[1]["offsets"])
     # assemble in order and compare to the single-process stream
     data = urls10k[:n_bytes]
-    from csnappy_tpu.ops import encode_fused
+    from csnappy_jax.ops import encode_fused
 
     bs = 4096
     nb = int(parts[0]["nb"])
@@ -68,7 +71,7 @@ def test_two_process_loopback(tmp_path, urls10k):
     stream = b"".join(comp[i, : clens[i]].tobytes() for i in range(full))
     ref_stream = b"".join(ref_comp[i, : ref_lens[i]].tobytes() for i in range(full))
     assert stream == ref_stream
-    from csnappy_tpu.models import pymodel
+    from csnappy_jax.models import pymodel
 
     got = b"".join(
         pymodel.decompress_noheader(comp[i, : clens[i]].tobytes(), bs)

@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from csnappy_tpu import api, errors
-from csnappy_tpu.models import pymodel, wire
-from csnappy_tpu.runtime import native
+from csnappy_jax import api, errors
+from csnappy_jax.models import pymodel, wire
+from csnappy_jax.runtime import native
 
 pytestmark = pytest.mark.skipif(not native.available(), reason="native lib not built")
 

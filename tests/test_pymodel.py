@@ -6,8 +6,8 @@ short-buffer error codes, truncated-literal rejection.
 """
 import pytest
 
-from csnappy_tpu import errors
-from csnappy_tpu.models import pymodel, wire
+from csnappy_jax import errors
+from csnappy_jax.models import pymodel, wire
 
 # The 8-byte truncated stream from the reference's decode selftest
 # (cl_tester.c:167): varint len 50, then a 50-byte literal with 7 payload bytes.
@@ -126,7 +126,7 @@ class TestStreamingDecode:
     """Bounded-window streaming decode (OutputBuffer.py analog)."""
 
     def test_urls_with_window_memory(self, urls10k, urls10k_snappy):
-        from csnappy_tpu.models import wire
+        from csnappy_jax.models import wire
 
         ulen, hdr = wire.varint_decode(urls10k_snappy)
         chunks = []
@@ -144,8 +144,8 @@ class TestStreamingDecode:
         assert b"".join(chunks) == data
 
     def test_offset_beyond_window_rejected(self):
-        from csnappy_tpu import errors
-        from csnappy_tpu.models import wire
+        from csnappy_jax import errors
+        from csnappy_jax.models import wire
 
         data = bytes(range(256)) * 40  # has far matches past 8K
         comp = pymodel.compress_fragment(b"Q" * 9000 + data[:200] + b"Q" * 9000)

@@ -3,8 +3,8 @@ import jax
 import numpy as np
 import pytest
 
-from csnappy_tpu.models import pymodel
-from csnappy_tpu.parallel import mesh as pmesh
+from csnappy_jax.models import pymodel
+from csnappy_jax.parallel import mesh as pmesh
 
 
 @pytest.fixture(scope="module")
@@ -31,7 +31,7 @@ def test_decompress_fragments_sharded(urls10k, mesh8):
 def test_per_fragment_dst_limit_enforced(urls10k, mesh8):
     # ADVICE r1 (low): a fragment producing more than its declared out_len
     # must be flagged E_OUTPUT_OVERRUN, not silently returned oversized
-    from csnappy_tpu import errors
+    from csnappy_jax import errors
 
     good = urls10k[:32768]
     frags = [pymodel.compress_fragment(good), pymodel.compress_fragment(good)]

@@ -1,7 +1,7 @@
 """Benchmark-table and zram-sim harness tests."""
 import pathlib
 
-from csnappy_tpu.tools import benchtable, zramsim
+from csnappy_jax.tools import benchtable, zramsim
 
 DATA = pathlib.Path(__file__).parent / "data"
 
@@ -23,7 +23,7 @@ def test_zramsim_roundtrip(tmp_path, urls10k):
 
 
 def test_corpus_deterministic_and_diverse():
-    from csnappy_tpu.tools.corpus import corpus
+    from csnappy_jax.tools.corpus import corpus
 
     c1 = corpus()
     c2 = corpus()
@@ -37,7 +37,7 @@ def test_corpus_deterministic_and_diverse():
 
 
 def test_benchtable_py_backend(tmp_path, capsys):
-    from csnappy_tpu.tools import benchtable
+    from csnappy_jax.tools import benchtable
 
     p = tmp_path / "x"
     p.write_bytes(b"hello world " * 400)
@@ -46,30 +46,22 @@ def test_benchtable_py_backend(tmp_path, capsys):
     assert "MB/s" in out and "ratio" in out
 
 
-def test_movebench_runs(capsys):
-    from csnappy_tpu.tools import movebench
+def test_optrace_reduction():
+    from csnappy_jax.tools import optrace
 
-    assert movebench.main(["2048"]) == 0
-    out = capsys.readouterr().out
-    assert out.count("elem_per_s") == 5
+    # overlapping, nested and disjoint intervals: the union is 0-15 and 20-25
+    assert optrace.busy_ns([(0, 10), (5, 15), (6, 7), (20, 25)]) == 20
+    assert optrace.busy_ns([]) == 0
+    events = [("scatter", 0, 5), ("sort", 5, 3), ("scatter", 9, 4), ("copy", 20, 1)]
+    assert optrace.top_ops(events, n=2) == [("scatter", 2, 9), ("sort", 1, 3)]
 
 
-def test_phaseprof_smoke(urls10k):
-    # interpret-mode smoke of the committed profiler (single phase each to
-    # keep CI fast: full pipelines only)
-    from csnappy_tpu.tools import phaseprof
+def test_page_store_tiles_the_corpus():
+    from csnappy_jax.tools.corpus import PAGE_STORE_BYTES, corpus, page_store
 
-    rows = phaseprof.profile_decode.__wrapped__ if False else None
-    # restrict to the "full" prefix by monkeypatching the phase dicts
-    import csnappy_tpu.tools.phaseprof as pp
-
-    old_d, old_e = pp.DEC_PHASES, pp.ENC_PHASES
-    pp.DEC_PHASES = {99: "full"}
-    pp.ENC_PHASES = {99: "full"}
-    try:
-        out_d = pp.profile_decode(urls10k[:65536])
-        out_e = pp.profile_encode(urls10k[:65536])
-    finally:
-        pp.DEC_PHASES, pp.ENC_PHASES = old_d, old_e
-    assert any("GBps_full" in r for r in out_d)
-    assert any("MBps_full" in r for r in out_e)
+    unit = b"".join(v for _, v in sorted(corpus().items()))
+    n = len(unit) + 12345           # one whole unit and the start of the next
+    store = page_store(n)
+    assert len(store) == n and store == unit + unit[:12345]
+    assert page_store(n) == store
+    assert PAGE_STORE_BYTES == 65536 * 4096
